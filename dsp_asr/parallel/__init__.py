@@ -1,0 +1,27 @@
+"""Parallelism layer: ('data','bank') mesh, sharded classify (SURVEY.md §2b)."""
+
+from dsp_asr.parallel.mesh import (
+    BANK_AXIS,
+    DATA_AXIS,
+    make_mesh,
+    pad_axis_to_multiple,
+    replicate,
+    shard_bank,
+    shard_queries,
+)
+from dsp_asr.parallel.sharding import (classify_sharded, recognize_sharded,
+                                        spot_sharded)
+
+__all__ = [
+    "DATA_AXIS", "BANK_AXIS", "make_mesh", "shard_queries", "shard_bank",
+    "replicate", "pad_axis_to_multiple", "classify_sharded", "recognize_sharded",
+    "spot_sharded",
+]
+
+from dsp_asr.parallel.em import em_step_sharded  # noqa: E402
+
+__all__.append("em_step_sharded")
+
+from dsp_asr.parallel import multihost  # noqa: E402
+
+__all__.append("multihost")

@@ -1,13 +1,13 @@
-// Native batch audio loader for dsp_tpu.
+// Native batch audio loader for dsp_asr.
 //
 // The reference loads WAVs one by one in Python (SURVEY.md L0).  Feeding a
-// TPU pipeline wants the host data path off the interpreter: this library
+// device pipeline wants the host data path off the interpreter: this library
 // decodes a whole batch of WAV files into a padded float32 matrix
 // [n, max_samples] with a thread pool — RIFF parse, PCM8/16/32 + float32,
 // multi-channel mono mix, linear resample to the target rate — one ctypes
-// call per batch (dsp_tpu/io/native.py).
+// call per batch (dsp_asr/io/native.py).
 //
-// Sample normalisation matches dsp_tpu/io/wav.py exactly:
+// Sample normalisation matches dsp_asr/io/wav.py exactly:
 //   pcm16: x/32768, pcm8: (x-128)/128, pcm32: x/2^31, float32: as-is;
 // resampling matches numpy.interp on the grid t_out = i * sr_in / sr_out.
 

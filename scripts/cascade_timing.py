@@ -48,12 +48,12 @@ def main():
 
     if os.environ.get("JAX_PLATFORMS") == "cpu":
         jax.config.update("jax_platforms", "cpu")
-    from dsp_tpu.config import HmmConfig, PipelineConfig
-    from dsp_tpu.io.dataset import make_corpus, synth_spotting_stream, \
+    from dsp_asr.config import HmmConfig, PipelineConfig
+    from dsp_asr.io.dataset import make_corpus, synth_spotting_stream, \
         synth_word
-    from dsp_tpu.models.gmm_hmm import GmmHmmRecognizer
-    from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
-    from dsp_tpu.models.spotter import CascadeSpotter, KeywordSpotter
+    from dsp_asr.models.gmm_hmm import GmmHmmRecognizer
+    from dsp_asr.models.knn_dtw import KnnDtwRecognizer
+    from dsp_asr.models.spotter import CascadeSpotter, KeywordSpotter
 
     cfg = PipelineConfig()
     # distinct synthetic classes beyond the 10 digits: the same w%02d

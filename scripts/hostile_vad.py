@@ -23,15 +23,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
-    from dsp_tpu.utils.cache import enable_compilation_cache
+    from dsp_asr.utils.cache import enable_compilation_cache
     enable_compilation_cache()
     import dataclasses
 
     import jax
 
-    from dsp_tpu.config import PipelineConfig, VadConfig
-    from dsp_tpu.io.hostile import hostile_vocab, make_hostile_corpus
-    from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
+    from dsp_asr.config import PipelineConfig, VadConfig
+    from dsp_asr.io.hostile import hostile_vocab, make_hostile_corpus
+    from dsp_asr.models.knn_dtw import KnnDtwRecognizer
 
     vocab = hostile_vocab()
     variants = [

@@ -31,15 +31,15 @@ def main():
         plat = sys.argv[sys.argv.index("--platform") + 1]
         import jax
         jax.config.update("jax_platforms", plat)
-    from dsp_tpu.utils.cache import enable_compilation_cache
+    from dsp_asr.utils.cache import enable_compilation_cache
     enable_compilation_cache()
     import jax
     import numpy as np
 
-    from dsp_tpu.config import HmmConfig, PipelineConfig
-    from dsp_tpu.io.hostile import hostile_vocab, make_hostile_corpus
-    from dsp_tpu.models.gmm_hmm import GmmHmmRecognizer, score_words
-    from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
+    from dsp_asr.config import HmmConfig, PipelineConfig
+    from dsp_asr.io.hostile import hostile_vocab, make_hostile_corpus
+    from dsp_asr.models.gmm_hmm import GmmHmmRecognizer, score_words
+    from dsp_asr.models.knn_dtw import KnnDtwRecognizer
 
     quick = "--quick" in sys.argv
 

@@ -16,14 +16,14 @@ import numpy as np
 
 
 def main():
-    from dsp_tpu.utils.cache import enable_compilation_cache
+    from dsp_asr.utils.cache import enable_compilation_cache
     enable_compilation_cache()
     import jax
 
-    from dsp_tpu.config import DtwConfig, FrontendConfig, HmmConfig, PipelineConfig
-    from dsp_tpu.io.dataset import DIGITS, make_corpus
-    from dsp_tpu.models.gmm_hmm import GmmHmmRecognizer
-    from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
+    from dsp_asr.config import DtwConfig, FrontendConfig, HmmConfig, PipelineConfig
+    from dsp_asr.io.dataset import DIGITS, make_corpus
+    from dsp_asr.models.gmm_hmm import GmmHmmRecognizer
+    from dsp_asr.models.knn_dtw import KnnDtwRecognizer
 
     train = make_corpus(DIGITS, n_per_word=5, seed=0)
     test = make_corpus(DIGITS, n_per_word=10, seed=5000)
@@ -44,12 +44,12 @@ def main():
         acc, rate = timed_eval(rec)
         rows.append((label, acc, rate, rec.n_templates))
 
-    knn("kNN-DTW (default: banded 0.17, fused kernel)", cfg=PipelineConfig())
+    knn("kNN-DTW (default: banded 0.17)", cfg=PipelineConfig())
     knn("kNN-DTW (k=3)", cfg=PipelineConfig(), k=3)
     knn("kNN-DTW (banded 0.2)",
         cfg=PipelineConfig(dtw=DtwConfig(band_frac=0.2)))
-    knn("kNN-DTW (fused kernel, unbanded)",
-        cfg=PipelineConfig(dtw=DtwConfig(band_frac=None, impl="fused")))
+    knn("kNN-DTW (unbanded)",
+        cfg=PipelineConfig(dtw=DtwConfig(band_frac=None)))
     knn("kNN-DTW (Itakura slope)",
         cfg=PipelineConfig(dtw=DtwConfig(slope="itakura")))
     knn("kNN-LTW (fast matcher)", cfg=PipelineConfig(), matcher="ltw")
@@ -68,8 +68,8 @@ def main():
     acc, rate = timed_eval(rec)
     rows.append(("kNN-DTW (DBA-condensed bank)", acc, rate, rec.n_templates))
 
-    from dsp_tpu.config import VqConfig
-    from dsp_tpu.models.vq import VqRecognizer
+    from dsp_asr.config import VqConfig
+    from dsp_asr.models.vq import VqRecognizer
     vrec = VqRecognizer(PipelineConfig(), VqConfig())
     vrec.fit(train)
     acc, rate = timed_eval(vrec)

@@ -24,12 +24,12 @@ def add_noise_snr(x, snr_db, rng):
 
 
 def main():
-    from dsp_tpu.utils.cache import enable_compilation_cache
+    from dsp_asr.utils.cache import enable_compilation_cache
     enable_compilation_cache()
 
-    from dsp_tpu.config import FrontendConfig, PipelineConfig
-    from dsp_tpu.io.dataset import DIGITS, make_corpus
-    from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
+    from dsp_asr.config import FrontendConfig, PipelineConfig
+    from dsp_asr.io.dataset import DIGITS, make_corpus
+    from dsp_asr.models.knn_dtw import KnnDtwRecognizer
 
     train = make_corpus(DIGITS, n_per_word=5, seed=0)
     test = make_corpus(DIGITS, n_per_word=5, seed=9000)

@@ -80,19 +80,19 @@ def main():
     if os.environ.get("JAX_PLATFORMS") == "cpu":
         jax.config.update("jax_platforms", "cpu")
 
-    from dsp_tpu.config import PipelineConfig
-    from dsp_tpu.io.dataset import DIGITS, synth_spotting_stream, synth_word
-    from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
-    from dsp_tpu.models.spotter import KeywordSpotter
+    from dsp_asr.config import PipelineConfig
+    from dsp_asr.io.dataset import DIGITS, synth_spotting_stream, synth_word
+    from dsp_asr.models.knn_dtw import KnnDtwRecognizer
+    from dsp_asr.models.spotter import KeywordSpotter
 
     cfg = PipelineConfig()
     keywords = DIGITS[:5]
     distract = DIGITS[5:]
     if args.family in ("hmm", "cascade"):
-        from dsp_tpu.config import HmmConfig
-        from dsp_tpu.io.dataset import make_corpus
-        from dsp_tpu.models.gmm_hmm import GmmHmmRecognizer
-        from dsp_tpu.models.spotter import HmmSpotter
+        from dsp_asr.config import HmmConfig
+        from dsp_asr.io.dataset import make_corpus
+        from dsp_asr.models.gmm_hmm import GmmHmmRecognizer
+        from dsp_asr.models.spotter import HmmSpotter
         hrec = GmmHmmRecognizer(cfg, HmmConfig(n_states=4, n_mix=2,
                                                n_iter=4))
         hrec.fit(make_corpus(keywords, n_per_word=5, seed=0))
@@ -101,7 +101,7 @@ def main():
         rec = hrec
         higher_better = True
         if args.family == "cascade":
-            from dsp_tpu.models.spotter import CascadeSpotter
+            from dsp_asr.models.spotter import CascadeSpotter
             brec = KnnDtwRecognizer(cfg)
             for lab in keywords:
                 brec.enroll(lab, [synth_word(lab, i) for i in range(3)])
@@ -141,7 +141,7 @@ def main():
                   else spotter.scores(sigs))
         cells = []
         for thr in thresholds:
-            from dsp_tpu.ops.spot import extract_events
+            from dsp_asr.ops.spot import extract_events
             evs = []
             if args.family == "cascade":
                 evs = [spotter.suppress([ev for ev in r if ev[3] < thr])

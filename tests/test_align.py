@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dsp_tpu.config import DtwConfig, PipelineConfig
-from dsp_tpu import golden
-from dsp_tpu.io.dataset import synth_word
-from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
-from dsp_tpu.ops import align as jalign
+from dsp_asr.config import DtwConfig, PipelineConfig
+from dsp_asr import golden
+from dsp_asr.io.dataset import synth_word
+from dsp_asr.models.knn_dtw import KnnDtwRecognizer
+from dsp_asr.ops import align as jalign
 
 
 def test_alignment_path_matches_golden():
@@ -50,7 +50,7 @@ def test_medoid_identifies_central_sequence():
 
 def test_dba_reduces_mean_distance():
     """A DBA center is closer (on average) to the set than the medoid."""
-    from dsp_tpu.ops.dtw import dtw_batch
+    from dsp_asr.ops.dtw import dtw_batch
     rng = np.random.default_rng(3)
     base = np.cumsum(rng.standard_normal((20, 4)), axis=0).astype(np.float32)
     feats = np.stack([base + 0.3 * rng.standard_normal((20, 4))

@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dsp_tpu import pipeline as pl
-from dsp_tpu.config import PipelineConfig
-from dsp_tpu.io.dataset import DIGITS, make_corpus, synth_word
-from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
-from dsp_tpu.ops import frontend as fe
+from dsp_asr import pipeline as pl
+from dsp_asr.config import PipelineConfig
+from dsp_asr.io.dataset import DIGITS, make_corpus, synth_word
+from dsp_asr.models.knn_dtw import KnnDtwRecognizer
+from dsp_asr.ops import frontend as fe
 
 CFG = PipelineConfig()
 

@@ -3,7 +3,7 @@
 The two-stage spotter: HMM keyword/filler landmarks propose candidate
 spans (stage 1, cheap parametric scan), exact subsequence DTW against
 the template bank relabels and re-spans each widened candidate window
-(stage 2, one batched MXU cost GEMM).  Proof layers: (1) e2e — planted
+(stage 2, one batched cost GEMM).  Proof layers: (1) e2e — planted
 keywords inside distractor streams come back with full-word spans and
 correct labels at the shipped defaults, (2) every rescored event's span
 contains the landmark midpoint of some stage-1 candidate (the
@@ -23,11 +23,11 @@ import pytest
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_spotter import _build_stream  # noqa: E402
 
-from dsp_tpu.config import HmmConfig, PipelineConfig  # noqa: E402
-from dsp_tpu.io.dataset import make_corpus, synth_word  # noqa: E402
-from dsp_tpu.models.gmm_hmm import GmmHmmRecognizer  # noqa: E402
-from dsp_tpu.models.knn_dtw import KnnDtwRecognizer  # noqa: E402
-from dsp_tpu.models.spotter import CascadeSpotter  # noqa: E402
+from dsp_asr.config import HmmConfig, PipelineConfig  # noqa: E402
+from dsp_asr.io.dataset import make_corpus, synth_word  # noqa: E402
+from dsp_asr.models.gmm_hmm import GmmHmmRecognizer  # noqa: E402
+from dsp_asr.models.knn_dtw import KnnDtwRecognizer  # noqa: E402
+from dsp_asr.models.spotter import CascadeSpotter  # noqa: E402
 
 KEYWORDS = ["zero", "one"]
 
@@ -138,7 +138,7 @@ def test_frame_grid_mismatch_raises(hmm_rec):
 
 # ---------------------------------------------------------------- streaming
 
-from dsp_tpu.models.spotter import StreamingCascadeSpotter  # noqa: E402
+from dsp_asr.models.spotter import StreamingCascadeSpotter  # noqa: E402
 
 CHUNK = 1600
 

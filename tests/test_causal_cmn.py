@@ -17,15 +17,15 @@ import pytest
 
 import jax.numpy as jnp
 
-from dsp_tpu.golden import pipeline as gpl
-from dsp_tpu import pipeline as pl
-from dsp_tpu.config import PipelineConfig
-from dsp_tpu.golden.frontend import causal_cmn as causal_cmn_np
-from dsp_tpu.io.dataset import synth_connected, synth_word
-from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
-from dsp_tpu.models.streaming import (StreamingConnectedRecognizer,
+from dsp_asr.golden import pipeline as gpl
+from dsp_asr import pipeline as pl
+from dsp_asr.config import PipelineConfig
+from dsp_asr.golden.frontend import causal_cmn as causal_cmn_np
+from dsp_asr.io.dataset import synth_connected, synth_word
+from dsp_asr.models.knn_dtw import KnnDtwRecognizer
+from dsp_asr.models.streaming import (StreamingConnectedRecognizer,
                                       StreamingRecognizer)
-from dsp_tpu.ops import frontend as fe
+from dsp_asr.ops import frontend as fe
 
 
 def _causal_cfg(**kw):

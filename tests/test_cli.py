@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-from dsp_tpu import cli
+from dsp_asr import cli
 
 
 @pytest.fixture(scope="module")
@@ -56,9 +56,9 @@ def test_recognize_command(corpus_dir, tmp_path, capsys):
 def test_recognize_reject_flag(corpus_dir, tmp_path, capsys):
     """enroll stores a calibrated rejection threshold; recognize
     --reject returns <reject> for an out-of-vocabulary WAV."""
-    from dsp_tpu.io.dataset import synth_word
-    from dsp_tpu.io.wav import write_wav
-    from dsp_tpu.models.knn_dtw import REJECT, KnnDtwRecognizer
+    from dsp_asr.io.dataset import synth_word
+    from dsp_asr.io.wav import write_wav
+    from dsp_asr.models.knn_dtw import REJECT, KnnDtwRecognizer
 
     bank = str(tmp_path / "bank.npz")
     cli.main(["enroll", "--corpus", os.path.join(corpus_dir, "train"),
@@ -93,8 +93,8 @@ def test_evaluate_reject_oov(corpus_dir, tmp_path, capsys):
     those queries count correct iff rejected."""
     import shutil
 
-    from dsp_tpu.io.dataset import synth_word
-    from dsp_tpu.io.wav import write_wav
+    from dsp_asr.io.dataset import synth_word
+    from dsp_asr.io.wav import write_wav
 
     bank = str(tmp_path / "bank.npz")
     cli.main(["enroll", "--corpus", os.path.join(corpus_dir, "train"),
@@ -113,8 +113,8 @@ def test_evaluate_reject_oov(corpus_dir, tmp_path, capsys):
 
 
 def test_recognize_connected(corpus_dir, tmp_path, capsys):
-    from dsp_tpu.io.dataset import synth_connected
-    from dsp_tpu.io.wav import write_wav
+    from dsp_asr.io.dataset import synth_connected
+    from dsp_asr.io.wav import write_wav
 
     bank = str(tmp_path / "bank.npz")
     cli.main(["enroll", "--corpus", os.path.join(corpus_dir, "train"),
@@ -130,8 +130,8 @@ def test_recognize_connected(corpus_dir, tmp_path, capsys):
 def test_recognize_connected_level_method(corpus_dir, tmp_path, capsys):
     """--connected-method level decodes a GAPLESS recording the VAD
     splitter cannot segment (ops/level_building.py)."""
-    from dsp_tpu.io.dataset import synth_connected
-    from dsp_tpu.io.wav import write_wav
+    from dsp_asr.io.dataset import synth_connected
+    from dsp_asr.io.wav import write_wav
 
     bank = str(tmp_path / "bank.npz")
     cli.main(["enroll", "--corpus", os.path.join(corpus_dir, "train"),
@@ -235,8 +235,8 @@ def test_flag_sentinels_preserve_enrolled_config(corpus_dir, tmp_path,
     'flag passed' from 'default'); None sentinels fix that."""
     import argparse
 
-    from dsp_tpu.cli import _apply_matcher_flags
-    from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
+    from dsp_asr.cli import _apply_matcher_flags
+    from dsp_asr.models.knn_dtw import KnnDtwRecognizer
 
     bank = str(tmp_path / "bank3.npz")
     cli.main(["enroll", "--corpus", os.path.join(corpus_dir, "train"),
@@ -259,8 +259,8 @@ def test_flag_sentinels_preserve_enrolled_config(corpus_dir, tmp_path,
 def test_serve_loop(corpus_dir, tmp_path, capsys, monkeypatch):
     import io
 
-    from dsp_tpu.io.dataset import synth_connected
-    from dsp_tpu.io.wav import write_wav
+    from dsp_asr.io.dataset import synth_connected
+    from dsp_asr.io.wav import write_wav
 
     bank = str(tmp_path / "bank.npz")
     cli.main(["enroll", "--corpus", os.path.join(corpus_dir, "train"),
@@ -295,8 +295,8 @@ def test_serve_grammar_applies_to_level_lines(corpus_dir, tmp_path,
     first word as a start reroutes the decode."""
     import io
 
-    from dsp_tpu.io.dataset import synth_connected
-    from dsp_tpu.io.wav import write_wav
+    from dsp_asr.io.dataset import synth_connected
+    from dsp_asr.io.wav import write_wav
 
     bank = str(tmp_path / "bank.npz")
     cli.main(["enroll", "--corpus", os.path.join(corpus_dir, "train"),
@@ -355,27 +355,25 @@ def test_evaluate_with_mesh_flag(corpus_dir, tmp_path, capsys):
 
 
 def test_warm_command(corpus_dir, tmp_path, capsys):
-    """`warm` drives the real classify path in a deadline child; the
-    parent's later call at the same shapes must hit the warm cache."""
+    """`warm` drives the real classify path in-process at the given
+    batch sizes."""
     bank = str(tmp_path / "bank.npz")
     cli.main(["enroll", "--corpus", os.path.join(corpus_dir, "train"),
               "--bank", bank])
-    cli.main(["warm", "--bank", bank, "--batches", "2",
-              "--timeout", "300", "--retries", "0"])
+    cli.main(["warm", "--bank", bank, "--batches", "2"])
     out = capsys.readouterr().out
     assert "warm: batch=2" in out and "warm: done" in out
 
 
 def test_warm_command_synthetic_bank(capsys):
-    cli.main(["warm", "--bank-size", "4", "--batches", "1",
-              "--timeout", "300", "--retries", "0"])
+    cli.main(["warm", "--bank-size", "4", "--batches", "1"])
     out = capsys.readouterr().out
     assert "warm: batch=1 bank=10" in out   # 10 words x ceil(4/10)=1 each
 
 
 def test_warm_connected_paths(corpus_dir, tmp_path, capsys):
     """warm --connected compiles the splitter, level-building and
-    grammar decoders at the given length multiple in the child."""
+    grammar decoders at the given length multiple."""
     bank = str(tmp_path / "bank.npz")
     cli.main(["enroll", "--corpus", os.path.join(corpus_dir, "train"),
               "--bank", bank])
@@ -383,25 +381,9 @@ def test_warm_connected_paths(corpus_dir, tmp_path, capsys):
     with open(spec, "w") as f:
         json.dump({"no_repeat": True}, f)
     cli.main(["warm", "--bank", bank, "--batches", "", "--connected", "2",
-              "--grammar", spec, "--timeout", "300", "--retries", "0"])
+              "--grammar", spec])
     out = capsys.readouterr().out
     assert "warm: connected+spot len=2x" in out and "warm: done" in out
-
-
-def test_evaluate_compile_timeout_runs_in_deadline_child(corpus_dir,
-                                                         tmp_path, capsys):
-    """--compile-timeout must produce the same result as the in-process
-    path, with the recognizer LOADED inside the deadline child (the
-    parent touches no jax — ADVICE round 3: pickling a live recognizer
-    fetched device arrays before the deadline machinery started)."""
-    bank = str(tmp_path / "bank.npz")
-    cli.main(["enroll", "--corpus", os.path.join(corpus_dir, "train"),
-              "--bank", bank])
-    cli.main(["evaluate", "--corpus", os.path.join(corpus_dir, "test"),
-              "--bank", bank, "--compile-timeout", "300"])
-    out = capsys.readouterr().out
-    acc = float(out.rsplit("accuracy:", 1)[1].split("(")[0])
-    assert acc >= 0.8
 
 
 def test_make_corpus_hostile_defaults_to_full_vocab(tmp_path):
@@ -448,7 +430,7 @@ def test_spot_and_evaluate_spot(tmp_path, capsys):
     # enroll stored a calibrated threshold in the bank (default-on), and
     # evaluate-spot with NO threshold flag picks it up — F1 must match
     # the eager --calibrate-threshold run above
-    from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
+    from dsp_asr.models.knn_dtw import KnnDtwRecognizer
     stored = KnnDtwRecognizer.load(bank).spot_threshold
     assert stored is not None and 10.0 < stored < 60.0
     cli.main(["evaluate-spot", "--corpus", spotting, "--bank", bank])

@@ -16,9 +16,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from dsp_tpu.models.gmm_hmm import HmmParams, emission_logb, _lr_log_a
-from dsp_tpu.ops.connected_viterbi import NEG_INF, connected_viterbi
-from dsp_tpu.ops.level_building import backtrack
+from dsp_asr.models.gmm_hmm import HmmParams, emission_logb, _lr_log_a
+from dsp_asr.ops.connected_viterbi import NEG_INF, connected_viterbi
+from dsp_asr.ops.level_building import backtrack
 
 RNG = np.random.default_rng(21)
 
@@ -109,9 +109,9 @@ def test_connected_viterbi_batched_consistent():
 def test_hmm_gapless_level_method_e2e():
     """The capability: GMM-HMM decodes a GAPLESS 3-word recording with
     method='level' where the VAD splitter under-segments."""
-    from dsp_tpu.config import HmmConfig, PipelineConfig
-    from dsp_tpu.io.dataset import make_corpus, synth_connected
-    from dsp_tpu.models.gmm_hmm import GmmHmmRecognizer
+    from dsp_asr.config import HmmConfig, PipelineConfig
+    from dsp_asr.io.dataset import make_corpus, synth_connected
+    from dsp_asr.models.gmm_hmm import GmmHmmRecognizer
 
     cfg = PipelineConfig()
     labels = ["zero", "one", "two"]
@@ -162,8 +162,8 @@ def _brute_connected_hmm_grammar(logb, log_pi, log_a, start, pairs, end,
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_grammar_connected_viterbi_matches_brute(seed):
-    from dsp_tpu.ops.connected_viterbi import connected_viterbi_grammar
-    from dsp_tpu.ops.level_building import backtrack_grammar
+    from dsp_asr.ops.connected_viterbi import connected_viterbi_grammar
+    from dsp_asr.ops.level_building import backtrack_grammar
 
     rng = np.random.default_rng(200 + seed)
     t, w, s, m, f = 6, 3, 3, 2, 2
@@ -193,8 +193,8 @@ def test_grammar_connected_viterbi_matches_brute(seed):
 
 
 def test_grammar_loop_equals_unconstrained_viterbi():
-    from dsp_tpu.ops.connected_viterbi import connected_viterbi_grammar
-    from dsp_tpu.ops.level_building import backtrack_grammar
+    from dsp_asr.ops.connected_viterbi import connected_viterbi_grammar
+    from dsp_asr.ops.level_building import backtrack_grammar
 
     rng = np.random.default_rng(77)
     t, w, s, m, f = 8, 3, 3, 2, 2
@@ -219,9 +219,9 @@ def test_grammar_loop_equals_unconstrained_viterbi():
 def test_hmm_grammar_e2e_reroute():
     """Model surface: a grammar that matches the truth is a no-op; one
     that forbids the true start forces a different grammatical decode."""
-    from dsp_tpu.config import HmmConfig, PipelineConfig
-    from dsp_tpu.io.dataset import make_corpus, synth_connected
-    from dsp_tpu.models.gmm_hmm import GmmHmmRecognizer
+    from dsp_asr.config import HmmConfig, PipelineConfig
+    from dsp_asr.io.dataset import make_corpus, synth_connected
+    from dsp_asr.models.gmm_hmm import GmmHmmRecognizer
 
     cfg = PipelineConfig()
     labels = ["zero", "one", "two"]
@@ -243,8 +243,8 @@ def test_hmm_grammar_e2e_reroute():
 
 
 def test_hmm_level_method_rejects_unknown():
-    from dsp_tpu.config import PipelineConfig
-    from dsp_tpu.models.gmm_hmm import GmmHmmRecognizer
+    from dsp_asr.config import PipelineConfig
+    from dsp_asr.models.gmm_hmm import GmmHmmRecognizer
 
     rec = GmmHmmRecognizer(PipelineConfig())
     rec.labels, rec.params = ["x"], object()

@@ -13,11 +13,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dsp_tpu.config import FrontendConfig, PipelineConfig
-from dsp_tpu.golden import frontend as gold
-from dsp_tpu.io.dataset import DIGITS, make_corpus, synth_word
-from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
-from dsp_tpu.ops import frontend as fe
+from dsp_asr.config import FrontendConfig, PipelineConfig
+from dsp_asr.golden import frontend as gold
+from dsp_asr.io.dataset import DIGITS, make_corpus, synth_word
+from dsp_asr.models.knn_dtw import KnnDtwRecognizer
+from dsp_asr.ops import frontend as fe
 
 SS = FrontendConfig(denoise="spectral_subtraction")
 
@@ -94,12 +94,14 @@ def test_recognizer_with_denoise_under_noise():
 
 def test_unsupported_paths_raise():
     x = jnp.zeros(4000, jnp.float32)
-    from dsp_tpu.ops.lpc import lpcc
+    from dsp_asr.ops.lpc import lpcc
     with pytest.raises(ValueError, match="denoise"):
         lpcc(x, dataclasses.replace(SS, feature_type="lpcc"))
-    from dsp_tpu.kernels.mfcc_pallas import mfcc_frames_pallas
+    from dsp_asr.ops import streaming as st
+    bogus = dataclasses.replace(SS, denoise="bogus")
     with pytest.raises(ValueError, match="denoise"):
-        mfcc_frames_pallas(jnp.zeros((8, SS.frame_len)), SS, interpret=True)
+        st.process_chunk(st.init_state(bogus, 1600), jnp.zeros(1600),
+                         fe.make_matrices(bogus), bogus, chunk_len=1600)
     with pytest.raises(ValueError, match="denoise"):
         fe.mfcc(x, dataclasses.replace(SS, denoise="bogus"))
 
@@ -107,7 +109,7 @@ def test_unsupported_paths_raise():
 def test_checkpoint_refuses_mismatched_ss_params(tmp_path):
     import os
 
-    from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
+    from dsp_asr.models.knn_dtw import KnnDtwRecognizer
 
     cfg = dataclasses.replace(PipelineConfig(), frontend=SS)
     rec = KnnDtwRecognizer(cfg)

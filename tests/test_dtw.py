@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dsp_tpu.config import DtwConfig
-from dsp_tpu import golden
-from dsp_tpu.ops import dtw as jdtw
+from dsp_asr.config import DtwConfig
+from dsp_asr import golden
+from dsp_asr.ops import dtw as jdtw
 
 
 def test_dtw_exact_small_integer_costs():

@@ -4,11 +4,11 @@ self-classification accuracy, checkpoint round-trip (SURVEY.md §4.5)."""
 import numpy as np
 import pytest
 
-from dsp_tpu import KnnDtwRecognizer, PipelineConfig, extract_mfcc
-from dsp_tpu.golden import pipeline as gpipe
-from dsp_tpu.golden.frontend import mfcc_with_deltas
-from dsp_tpu.golden.vad import detect_endpoints as gold_vad
-from dsp_tpu.io.dataset import make_corpus, synth_word
+from dsp_asr import KnnDtwRecognizer, PipelineConfig, extract_mfcc
+from dsp_asr.golden import pipeline as gpipe
+from dsp_asr.golden.frontend import mfcc_with_deltas
+from dsp_asr.golden.vad import detect_endpoints as gold_vad
+from dsp_asr.io.dataset import make_corpus, synth_word
 
 CFG = PipelineConfig()
 LABELS = ["zero", "one", "two", "three", "four"]
@@ -98,7 +98,7 @@ def test_knn_vote_k3():
 
 def test_cmn_parity_and_recognition():
     """Cepstral mean normalization: device == golden, recognition works."""
-    from dsp_tpu.config import FrontendConfig
+    from dsp_asr.config import FrontendConfig
     cfg = PipelineConfig(frontend=FrontendConfig(cmn=True))
     rec = KnnDtwRecognizer(cfg)
     for lab in LABELS[:3]:

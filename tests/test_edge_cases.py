@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from dsp_tpu import KnnDtwRecognizer, PipelineConfig, extract_mfcc
-from dsp_tpu.config import HmmConfig
-from dsp_tpu.io.dataset import synth_word
-from dsp_tpu.models.gmm_hmm import GmmHmmRecognizer
+from dsp_asr import KnnDtwRecognizer, PipelineConfig, extract_mfcc
+from dsp_asr.config import HmmConfig
+from dsp_asr.io.dataset import synth_word
+from dsp_asr.models.gmm_hmm import GmmHmmRecognizer
 
 
 @pytest.fixture(scope="module")
@@ -34,7 +34,7 @@ def test_tiny_signal_does_not_crash(recognizer):
     all-dead sentinel (ADVICE round 3) a zero-frame query — every
     distance unreachable — honestly reports NO_MATCH instead of
     silently electing the first template."""
-    from dsp_tpu.models.knn_dtw import NO_MATCH
+    from dsp_asr.models.knn_dtw import NO_MATCH
 
     allowed = ["zero", "one", NO_MATCH]
     assert recognizer.recognize(np.zeros(10, dtype=np.float32)) in allowed
@@ -42,7 +42,7 @@ def test_tiny_signal_does_not_crash(recognizer):
 
 
 def test_digital_silence_does_not_crash(recognizer):
-    from dsp_tpu.models.knn_dtw import NO_MATCH
+    from dsp_asr.models.knn_dtw import NO_MATCH
 
     got = recognizer.recognize(np.zeros(16000, dtype=np.float32))
     assert got in ["zero", "one", NO_MATCH]
@@ -82,7 +82,7 @@ def test_no_vad_config_path():
 
 
 def test_no_deltas_config_path():
-    from dsp_tpu.config import FrontendConfig
+    from dsp_asr.config import FrontendConfig
     cfg = PipelineConfig(frontend=FrontendConfig(add_deltas=False))
     rec = KnnDtwRecognizer(cfg)
     rec.enroll("zero", [synth_word("zero", 0)])
@@ -101,7 +101,7 @@ def test_classify_batch_chunking_matches_unchunked(recognizer):
 
 def test_profiling_helpers(tmp_path):
     import jax.numpy as jnp
-    from dsp_tpu.utils import StageTimer, stage
+    from dsp_asr.utils import StageTimer, stage
 
     timer = StageTimer()
     with timer.time("mfcc"):

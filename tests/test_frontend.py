@@ -4,10 +4,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dsp_tpu.config import FrontendConfig
-from dsp_tpu import golden
-from dsp_tpu.io.dataset import synth_word
-from dsp_tpu.ops import frontend as fe
+from dsp_asr.config import FrontendConfig
+from dsp_asr import golden
+from dsp_asr.io.dataset import synth_word
+from dsp_asr.ops import frontend as fe
 
 CFG = FrontendConfig()
 
@@ -50,7 +50,7 @@ def test_frame_batched():
 @pytest.mark.parametrize("use_fft", [True, False])
 def test_mfcc_parity(signals, use_fft):
     """MFCC matches the float64 oracle via both the exact-FFT path and the
-    production DFT-matmul (MXU) path."""
+    production DFT-matmul path."""
     for x in signals:
         got = np.asarray(fe.mfcc(jnp.asarray(x), CFG, use_fft=use_fft))
         want = golden.mfcc(x, CFG)

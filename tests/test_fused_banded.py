@@ -1,4 +1,4 @@
-"""Parity tests for the fused banded DTW window kernel.
+"""Parity tests for the fused banded DTW kernel (GPU, in interpret mode).
 
 Oracle chain (SURVEY.md §4.3): golden windowed-mask numpy DP (exact
 semantics by construction) -> XLA banded scan (equal under coverage) ->
@@ -11,11 +11,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from dsp_tpu.config import DtwConfig
-from dsp_tpu.golden import dtw as gdtw
-from dsp_tpu.kernels.dtw_fused_banded import (
-    LANE, dtw_batch_fused_banded, plan_window, _round_up)
-from dsp_tpu.ops import dtw as jdtw
+from dsp_asr.config import DtwConfig
+from dsp_asr.golden import dtw as gdtw
+from dsp_asr.kernels.dtw_fused_banded import dtw_batch_fused_banded
+from dsp_asr.ops import dtw as jdtw
+from dsp_asr.window_plan import LANE, plan_window, round_up as _round_up
 
 RNG = np.random.default_rng(7)
 
@@ -90,12 +90,21 @@ def test_exact_on_integer_features():
 
 
 def test_unbanded_matches_golden():
+    """Unbanded DTW is the scan's (the kernel holds only a band in
+    registers): the routing sends it there on every platform, and the
+    routed distances match the golden DP."""
+    from dsp_asr import pipeline as pl
+
     cfg = DtwConfig(band_frac=None)
     q = RNG.normal(size=(2, 50, 5)).astype(np.float32)
     bk = RNG.normal(size=(3, 60, 5)).astype(np.float32)
     ql = np.array([50, 31], np.int32)
     bl = np.array([60, 44, 17], np.int32)
-    _assert_close(_run(q, ql, bk, bl, cfg), _oracle(q, ql, bk, bl, cfg))
+    for platform in ("cpu", "gpu"):
+        assert pl.dtw_impl(cfg, 2, 3, 50, 60, platform=platform) == "scan"
+    d = np.asarray(pl.dtw_pairs(jnp.asarray(q), jnp.asarray(ql),
+                                jnp.asarray(bk), jnp.asarray(bl), cfg))
+    _assert_close(d, _oracle(q, ql, bk, bl, cfg))
 
 
 def test_equals_scan_banded_under_coverage():
@@ -146,25 +155,41 @@ def test_integer_band_rule_consistency():
 
 
 def test_staged_extraction_bit_identical():
-    """_STAGED_EXTRACT replaces the per-block scalar offset chain with a
-    vectorized prefix-min + masked static roll stages; distances must be
-    BIT-identical to the legacy extraction (same windows selected)."""
-    from dsp_tpu.kernels import dtw_fused_banded as fb
+    """Between rows the kernel moves its band-coordinate DP row left by
+    a per-lane shift, as log2 static select stages (_shift).  Every shift
+    must equal the direct gather bit for bit, and a pair's distance must
+    not depend on the lane or program it lands in."""
+    from dsp_asr.kernels import dtw_fused_banded as fb
+    from dsp_asr.ops.dtw import BIG
 
-    b, k, t, u, f = 5, 7, 50, 46, 8
+    lanes, n, nbits = 8, 6, 3
+    vals = RNG.standard_normal((n, lanes)).astype(np.float32)
+    s = np.arange(lanes, dtype=np.int32)            # shifts 0..7
+    for lead in (0, 1, 2):
+        got = np.stack([np.asarray(v) for v in fb._shift(
+            tuple(jnp.asarray(v) for v in vals), jnp.asarray(s), lead,
+            nbits)])
+        ext = np.concatenate([np.full((lead, lanes), BIG, np.float32), vals])
+        want = np.full(ext.shape, BIG, np.float32)
+        for m in range(ext.shape[0]):
+            for ln in range(lanes):
+                if m + s[ln] < ext.shape[0]:
+                    want[m, ln] = ext[m + s[ln], ln]
+        np.testing.assert_array_equal(got, want)
+
+    b, k, t, u, f = 5, 3, 50, 46, 8
     q = RNG.standard_normal((b, t, f)).astype(np.float32)
     bk = RNG.standard_normal((k, u, f)).astype(np.float32)
     ql = RNG.integers(12, t + 1, size=b).astype(np.int32)
     bl = RNG.integers(12, u + 1, size=k).astype(np.int32)
+    perm = RNG.permutation(b)
+    # 40 queries: the permuted copies land in other lanes of a 2nd program
+    qq = np.concatenate([q, q[perm], q[:30]])
+    qql = np.concatenate([ql, ql[perm], ql[:30]])
     for cfg in (DtwConfig(band_frac=0.15, squared=True),
                 DtwConfig(band_frac=0.15, squared=False),
                 DtwConfig(band_frac=0.2, slope="itakura")):
-        old = fb._STAGED_EXTRACT
-        try:
-            fb._STAGED_EXTRACT = False
-            want = _run(q, ql, bk, bl, cfg)
-            fb._STAGED_EXTRACT = True
-            got = _run(q, ql, bk, bl, cfg)
-        finally:
-            fb._STAGED_EXTRACT = old
-        np.testing.assert_array_equal(got, want)
+        want = _run(q, ql, bk, bl, cfg)
+        got = _run(qq, qql, bk, bl, cfg)
+        np.testing.assert_array_equal(got[:b], want)
+        np.testing.assert_array_equal(got[b:2 * b], want[perm])

@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dsp_tpu.config import HmmConfig, PipelineConfig
-from dsp_tpu.models import gmm_hmm as gh
-from dsp_tpu.io.dataset import make_corpus, synth_word
+from dsp_asr.config import HmmConfig, PipelineConfig
+from dsp_asr.models import gmm_hmm as gh
+from dsp_asr.io.dataset import make_corpus, synth_word
 
 HCFG = HmmConfig(n_states=4, n_mix=2, n_iter=5)
 
@@ -104,8 +104,8 @@ def test_score_words_batch_shape():
 def test_sharded_em_matches_single_device():
     """psum-reduced distributed EM == single-device EM (SURVEY.md §4.4)."""
     import jax
-    from dsp_tpu import parallel as par
-    from dsp_tpu.parallel.em import em_step_sharded
+    from dsp_asr import parallel as par
+    from dsp_asr.parallel.em import em_step_sharded
 
     rng = np.random.default_rng(7)
     n, t, f = 8, 24, 6
@@ -142,7 +142,7 @@ def test_forward_backward_consistency():
         jnp.asarray(L))
     alphas, betas = np.asarray(alphas), np.asarray(betas)
     # parity with the golden forward algorithm on the truncated sequence
-    want_ll = float(__import__("dsp_tpu.golden.hmm", fromlist=["forward_log"])
+    want_ll = float(__import__("dsp_asr.golden.hmm", fromlist=["forward_log"])
                     .forward_log(log_pi.astype(np.float64),
                                  log_a.astype(np.float64),
                                  log_b[:L].astype(np.float64)))
@@ -156,10 +156,10 @@ def test_forward_backward_consistency():
 
 def test_baum_welch_increases_likelihood_and_recognizes():
     labels = ["zero", "one", "two"]
-    from dsp_tpu.io.dataset import make_corpus, synth_word
+    from dsp_asr.io.dataset import make_corpus, synth_word
     cfg_bw = HmmConfig(n_states=4, n_mix=2, n_iter=5, train_mode="baum_welch")
     train = make_corpus(labels, n_per_word=5, seed=0)
-    from dsp_tpu.config import PipelineConfig
+    from dsp_asr.config import PipelineConfig
     rec = gh.GmmHmmRecognizer(PipelineConfig(), cfg_bw)
 
     # likelihood monotonicity on one word
@@ -181,9 +181,9 @@ def test_baum_welch_increases_likelihood_and_recognizes():
 
 def test_fit_with_mesh_matches_single_device():
     """GmmHmmRecognizer.fit(mesh=...) == fit() parameters (ragged N)."""
-    from dsp_tpu import parallel as par
-    from dsp_tpu.io.dataset import make_corpus, synth_word
-    from dsp_tpu.config import PipelineConfig
+    from dsp_asr import parallel as par
+    from dsp_asr.io.dataset import make_corpus, synth_word
+    from dsp_asr.config import PipelineConfig
 
     corpus = make_corpus(["zero", "one"], n_per_word=5, seed=0)  # 5 % 4 != 0
     plain = gh.GmmHmmRecognizer(PipelineConfig(), HCFG)
@@ -198,7 +198,7 @@ def test_fit_with_mesh_matches_single_device():
             np.asarray(getattr(sharded.params, name)),
             np.asarray(getattr(plain.params, name)),
             rtol=2e-2, atol=1e-2, err_msg=name)
-    from dsp_tpu.io.dataset import synth_word
+    from dsp_asr.io.dataset import synth_word
     probes = [synth_word(w, 77 + i) for i, w in enumerate(["zero", "one"])]
     assert sharded.classify_batch(probes) == plain.classify_batch(probes)
 
@@ -227,7 +227,7 @@ def test_batched_fit_matches_per_word_loop():
 
 def test_batched_fit_on_mesh():
     """Words x utterances sharded over a ('data','bank') mesh."""
-    from dsp_tpu import parallel as par
+    from dsp_asr import parallel as par
 
     corpus = {lab: [synth_word(lab, i) for i in range(2)]
               for lab in ["zero", "one", "two", "three"]}

@@ -8,9 +8,9 @@ tests before anything is tested against it.
 import numpy as np
 import pytest
 
-from dsp_tpu.config import DtwConfig, FrontendConfig, VadConfig
-from dsp_tpu import golden
-from dsp_tpu.io.dataset import synth_word
+from dsp_asr.config import DtwConfig, FrontendConfig, VadConfig
+from dsp_asr import golden
+from dsp_asr.io.dataset import synth_word
 
 
 def test_preemphasis_known_answer():
@@ -163,8 +163,8 @@ def test_forward_geq_viterbi():
 
 
 def test_golden_self_classification():
-    from dsp_tpu.golden import classify
-    from dsp_tpu.golden.frontend import mfcc_with_deltas
+    from dsp_asr.golden import classify
+    from dsp_asr.golden.frontend import mfcc_with_deltas
     labels = ["zero", "one", "two"]
     bank = [(lab, mfcc_with_deltas(synth_word(lab, 0))) for lab in labels]
     for lab in labels:

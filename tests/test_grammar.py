@@ -5,7 +5,7 @@ import json
 import numpy as np
 import pytest
 
-from dsp_tpu.ops.grammar import Grammar
+from dsp_asr.ops.grammar import Grammar
 
 WORDS = ("one", "two", "three")
 

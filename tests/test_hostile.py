@@ -1,13 +1,13 @@
-"""Hostile benchmark corpus (dsp_tpu/io/hostile.py; round-2 verdict:
+"""Hostile benchmark corpus (dsp_asr/io/hostile.py; round-2 verdict:
 break the accuracy circularity of the designed-separable default corpus)."""
 
 import numpy as np
 
-from dsp_tpu.config import PipelineConfig
-from dsp_tpu.io.hostile import (CONDITIONS, hostile_vocab,
+from dsp_asr.config import PipelineConfig
+from dsp_asr.io.hostile import (CONDITIONS, hostile_vocab,
                                 make_hostile_corpus, speaker_params,
                                 synth_hostile)
-from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
+from dsp_asr.models.knn_dtw import KnnDtwRecognizer
 
 
 def test_vocab_is_35_unique_minimal_pairs():
@@ -73,7 +73,7 @@ def test_cli_make_corpus_hostile(tmp_path):
 
     out = tmp_path / "hc"
     r = subprocess.run(
-        [sys.executable, "-m", "dsp_tpu", "make-corpus", "--out", str(out),
+        [sys.executable, "-m", "dsp_asr", "make-corpus", "--out", str(out),
          "--hostile", "--words", "5", "--n", "1", "--condition", "snr10"],
         capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr

@@ -15,10 +15,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from dsp_tpu.config import DtwConfig
-from dsp_tpu.golden import dtw as gd
-from dsp_tpu.ops import dtw as jdtw
-from dsp_tpu.kernels.dtw_fused_banded import dtw_batch_fused_banded
+from dsp_asr.config import DtwConfig
+from dsp_asr.golden import dtw as gd
+from dsp_asr.ops import dtw as jdtw
+from dsp_asr.kernels.dtw_fused_banded import dtw_batch_fused_banded
 
 UNREACH = 1e20
 
@@ -174,15 +174,16 @@ def test_unsupported_impls_raise():
     with pytest.raises(ValueError, match="slope"):
         jdtw.dtw_batch_bidi(q, ql, bank, bl,
                             DtwConfig(band_frac=None, slope="itakura"))
-    from dsp_tpu.kernels.dtw_fused import dtw_batch_fused
-    with pytest.raises(ValueError, match="slope"):
-        dtw_batch_fused(q, ql, bank, bl,
-                        DtwConfig(band_frac=None, slope="itakura"))
-    from dsp_tpu.kernels.dtw_pallas import dtw_batch_pallas
-    with pytest.raises(ValueError, match="slope"):
-        dtw_batch_pallas(q, ql, bank, bl,
-                         DtwConfig(band_frac=None, slope="itakura"),
-                         interpret=True)
+    # the kernel leaves the unbanded itakura DP to the scan, and an
+    # explicit request for the kernel there fails instead of falling back
+    with pytest.raises(ValueError, match="does not implement"):
+        dtw_batch_fused_banded(q, ql, bank, bl,
+                               DtwConfig(band_frac=None, slope="itakura"),
+                               interpret=True)
+    from dsp_asr.pipeline import dtw_impl
+    with pytest.raises(ValueError, match="does not implement"):
+        dtw_impl(DtwConfig(band_frac=None, slope="itakura",
+                           impl="fused_banded"), 1, 1, 16, 16, platform="gpu")
     with pytest.raises(ValueError, match="slope"):
         dtw_batch_fused_banded(q, ql, bank, bl,
                                DtwConfig(slope="bogus"), interpret=True)
@@ -193,8 +194,8 @@ def test_recognizer_with_slope_end_to_end():
     classifies the synthetic corpus correctly."""
     import dataclasses
 
-    from dsp_tpu import KnnDtwRecognizer, PipelineConfig
-    from dsp_tpu.io.dataset import synth_word
+    from dsp_asr import KnnDtwRecognizer, PipelineConfig
+    from dsp_asr.io.dataset import synth_word
 
     base = PipelineConfig()
     cfg = dataclasses.replace(
@@ -238,7 +239,7 @@ def test_golden_backtrace_path_is_valid_and_optimal():
 
 
 def test_jax_alignment_matches_golden_path():
-    from dsp_tpu.ops.align import dtw_alignment
+    from dsp_asr.ops.align import dtw_alignment
 
     rng = np.random.default_rng(9)
     T, U, F = 24, 30, 5
@@ -263,8 +264,8 @@ def test_jax_alignment_matches_golden_path():
 def test_condense_dba_under_slope():
     import dataclasses
 
-    from dsp_tpu import KnnDtwRecognizer, PipelineConfig
-    from dsp_tpu.io.dataset import synth_word
+    from dsp_asr import KnnDtwRecognizer, PipelineConfig
+    from dsp_asr.io.dataset import synth_word
 
     base = PipelineConfig()
     cfg = dataclasses.replace(

@@ -13,8 +13,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from dsp_tpu.golden import level_building as gl
-from dsp_tpu.ops import level_building as lb
+from dsp_asr.golden import level_building as gl
+from dsp_asr.ops import level_building as lb
 
 RNG = np.random.default_rng(11)
 
@@ -101,9 +101,9 @@ def test_gapless_recording_level_beats_vad_splitter():
     """The capability gap this module closes (VERDICT r3 #4): words
     butted together with NO silence gap.  The VAD splitter sees one
     segment and under-counts; level building recovers the sequence."""
-    from dsp_tpu.config import PipelineConfig
-    from dsp_tpu.io.dataset import synth_connected, synth_word
-    from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
+    from dsp_asr.config import PipelineConfig
+    from dsp_asr.io.dataset import synth_connected, synth_word
+    from dsp_asr.models.knn_dtw import KnnDtwRecognizer
 
     cfg = PipelineConfig()
     rec = KnnDtwRecognizer(cfg)
@@ -248,9 +248,9 @@ def test_grammar_infeasible_end_returns_empty():
 
 @pytest.fixture(scope="module")
 def grammar_rec():
-    from dsp_tpu.config import PipelineConfig
-    from dsp_tpu.io.dataset import synth_word
-    from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
+    from dsp_asr.config import PipelineConfig
+    from dsp_asr.io.dataset import synth_word
+    from dsp_asr.models.knn_dtw import KnnDtwRecognizer
 
     rec = KnnDtwRecognizer(PipelineConfig())
     for lab in ["zero", "one", "two"]:
@@ -260,8 +260,8 @@ def grammar_rec():
 
 def test_model_grammar_loop_matches_unconstrained(grammar_rec):
     """An all-allowed grammar must not change the gapless decode."""
-    from dsp_tpu.io.dataset import synth_connected
-    from dsp_tpu.ops.grammar import Grammar
+    from dsp_asr.io.dataset import synth_connected
+    from dsp_asr.ops.grammar import Grammar
 
     truth = ["two", "zero", "one"]
     sig = synth_connected(truth, seed=5, gap_ms=(0.0, 1.0),
@@ -278,7 +278,7 @@ def test_model_grammar_reroutes_forbidden_decode(grammar_rec):
     """Forbid the true first word from starting: the decoder must pick
     the best GRAMMATICAL sequence instead (and flag nothing for the
     grammar that matches the truth)."""
-    from dsp_tpu.io.dataset import synth_connected
+    from dsp_asr.io.dataset import synth_connected
 
     truth = ["two", "zero", "one"]
     sig = synth_connected(truth, seed=5, gap_ms=(0.0, 1.0),
@@ -297,7 +297,7 @@ def test_model_grammar_reroutes_forbidden_decode(grammar_rec):
 def test_model_grammar_spec_path_and_validation(grammar_rec, tmp_path):
     import json
 
-    from dsp_tpu.io.dataset import synth_connected
+    from dsp_asr.io.dataset import synth_connected
 
     truth = ["one", "two"]
     sig = synth_connected(truth, seed=8, gap_ms=(0.0, 1.0),
@@ -308,7 +308,7 @@ def test_model_grammar_spec_path_and_validation(grammar_rec, tmp_path):
         [sig], max_segments=3, method="level", grammar=str(p))[0] == truth
     with pytest.raises(ValueError, match="require method='level'"):
         grammar_rec.classify_connected([sig], grammar={"no_repeat": True})
-    from dsp_tpu.ops.grammar import Grammar
+    from dsp_asr.ops.grammar import Grammar
     with pytest.raises(ValueError, match="does not cover"):
         grammar_rec.classify_connected(
             [sig], method="level", grammar=Grammar.loop(("zero", "one")))

@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dsp_tpu.config import FrontendConfig, PipelineConfig
-from dsp_tpu.golden import lpc as glpc
-from dsp_tpu.io.dataset import synth_word
-from dsp_tpu.ops import lpc as jlpc
+from dsp_asr.config import FrontendConfig, PipelineConfig
+from dsp_asr.golden import lpc as glpc
+from dsp_asr.io.dataset import synth_word
+from dsp_asr.ops import lpc as jlpc
 
 CFG = FrontendConfig(feature_type="lpcc")
 
@@ -53,7 +53,7 @@ def test_jax_lpcc_matches_golden_end_to_end():
 
 
 def test_lpcc_recognizer_end_to_end():
-    from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
+    from dsp_asr.models.knn_dtw import KnnDtwRecognizer
     cfg = PipelineConfig(frontend=FrontendConfig(feature_type="lpcc"))
     rec = KnnDtwRecognizer(cfg)
     labels = ["zero", "one", "two"]

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dsp_tpu.config import PipelineConfig
-from dsp_tpu.io.dataset import synth_word
-from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
-from dsp_tpu.ops.frontend import time_normalize
+from dsp_asr.config import PipelineConfig
+from dsp_asr.io.dataset import synth_word
+from dsp_asr.models.knn_dtw import KnnDtwRecognizer
+from dsp_asr.ops.frontend import time_normalize
 
 
 def test_time_normalize_matches_interp():
@@ -78,7 +78,7 @@ def test_checkpoint_frontend_signature_mismatch_raises(tmp_path):
 
     import pytest
 
-    from dsp_tpu.config import PipelineConfig
+    from dsp_asr.config import PipelineConfig
 
     cfg = PipelineConfig()
     rec = KnnDtwRecognizer(cfg)

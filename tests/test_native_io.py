@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-from dsp_tpu.io import native
-from dsp_tpu.io.dataset import synth_word
-from dsp_tpu.io.wav import read_wav, write_wav
+from dsp_asr.io import native
+from dsp_asr.io.dataset import synth_word
+from dsp_asr.io.wav import read_wav, write_wav
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="no C++ toolchain")

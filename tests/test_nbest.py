@@ -6,10 +6,10 @@ import os
 import numpy as np
 import pytest
 
-from dsp_tpu import cli
-from dsp_tpu import pipeline as pl
-from dsp_tpu.config import PipelineConfig
-from dsp_tpu.io.dataset import make_corpus
+from dsp_asr import cli
+from dsp_asr import pipeline as pl
+from dsp_asr.config import PipelineConfig
+from dsp_asr.io.dataset import make_corpus
 
 LABELS = ["one", "two", "zero"]
 
@@ -55,7 +55,7 @@ def corpus():
 
 
 def test_knn_nbest_top1_matches_classify(corpus):
-    from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
+    from dsp_asr.models.knn_dtw import KnnDtwRecognizer
 
     rec = KnnDtwRecognizer(PipelineConfig())
     for lab, xs in corpus.items():
@@ -70,8 +70,8 @@ def test_knn_nbest_top1_matches_classify(corpus):
 
 
 def test_hmm_nbest_top1_matches_classify(corpus):
-    from dsp_tpu.models.gmm_hmm import GmmHmmRecognizer
-    from dsp_tpu.config import HmmConfig
+    from dsp_asr.models.gmm_hmm import GmmHmmRecognizer
+    from dsp_asr.config import HmmConfig
 
     rec = GmmHmmRecognizer(PipelineConfig(),
                            HmmConfig(n_states=3, n_mix=2, n_iter=3))
@@ -84,7 +84,7 @@ def test_hmm_nbest_top1_matches_classify(corpus):
 
 
 def test_vq_nbest_top1_matches_classify(corpus):
-    from dsp_tpu.models.vq import VqRecognizer
+    from dsp_asr.models.vq import VqRecognizer
 
     rec = VqRecognizer(PipelineConfig())
     rec.fit(corpus)
@@ -94,8 +94,8 @@ def test_vq_nbest_top1_matches_classify(corpus):
 
 
 def test_knn_nbest_mesh_matches_single_device(corpus):
-    from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
-    from dsp_tpu.parallel import make_mesh
+    from dsp_asr.models.knn_dtw import KnnDtwRecognizer
+    from dsp_asr.parallel import make_mesh
 
     rec = KnnDtwRecognizer(PipelineConfig())
     for lab, xs in corpus.items():

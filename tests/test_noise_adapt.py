@@ -13,10 +13,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from dsp_tpu.config import FrontendConfig, PipelineConfig, VadConfig
-from dsp_tpu.io.dataset import DIGITS, make_corpus, synth_connected, synth_word
-from dsp_tpu.ops import frontend as fe
-from dsp_tpu.ops.noise_adapt import (estimate_noise_cepstrum,
+from dsp_asr.config import FrontendConfig, PipelineConfig, VadConfig
+from dsp_asr.io.dataset import DIGITS, make_corpus, synth_connected, synth_word
+from dsp_asr.ops import frontend as fe
+from dsp_asr.ops.noise_adapt import (estimate_noise_cepstrum,
                                      pmc_adapt_means, pmc_supported)
 
 CFG = FrontendConfig()
@@ -89,7 +89,7 @@ def test_pmc_supported_gates():
 
 
 def test_recognizer_rejects_unsupported_frontend():
-    from dsp_tpu.models.gmm_hmm import GmmHmmRecognizer
+    from dsp_asr.models.gmm_hmm import GmmHmmRecognizer
 
     cfg = PipelineConfig(frontend=FrontendConfig(cmn=True))
     rec = GmmHmmRecognizer(cfg, noise_adapt=True)
@@ -103,8 +103,8 @@ def test_hmm_noise_adapt_recovers_connected_wer():
     """The headline: clean-trained HMM at sigma=0.05 connected speech.
     Measured full-size (30 clips): 0.851 -> 0.000 WER.  This compact
     version must show the same collapse-and-recovery shape."""
-    from dsp_tpu.models.gmm_hmm import GmmHmmRecognizer
-    from dsp_tpu.pipeline import edit_distance
+    from dsp_asr.models.gmm_hmm import GmmHmmRecognizer
+    from dsp_asr.pipeline import edit_distance
 
     cfg = PipelineConfig()
     corpus = make_corpus(n_per_word=3, seed=0, noise=0.005)

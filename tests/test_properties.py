@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dsp_tpu.config import DtwConfig, FrontendConfig, PipelineConfig, VadConfig
-from dsp_tpu import golden
-from dsp_tpu.io.dataset import synth_word
-from dsp_tpu.ops import dtw as jdtw
-from dsp_tpu.ops import frontend as fe
-from dsp_tpu.ops import vad as jvad
+from dsp_asr.config import DtwConfig, FrontendConfig, PipelineConfig, VadConfig
+from dsp_asr import golden
+from dsp_asr.io.dataset import synth_word
+from dsp_asr.ops import dtw as jdtw
+from dsp_asr.ops import frontend as fe
+from dsp_asr.ops import vad as jvad
 
 FCFG = FrontendConfig()
 
@@ -89,7 +89,7 @@ def test_dtw_metric_like_properties_fuzz():
 def test_leading_silence_invariance():
     """Shifting a word later in the padded window keeps the label (VAD
     re-anchors the features)."""
-    from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
+    from dsp_asr.models.knn_dtw import KnnDtwRecognizer
     rec = KnnDtwRecognizer(PipelineConfig())
     for lab in ["zero", "one", "two"]:
         rec.enroll(lab, [synth_word(lab, 0)])
@@ -104,8 +104,8 @@ def test_leading_silence_invariance():
 
 def test_resampled_8k_wav_roundtrip(tmp_path):
     """A 8 kHz recording resampled to 16 kHz still classifies correctly."""
-    from dsp_tpu.io.wav import read_wav, write_wav
-    from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
+    from dsp_asr.io.wav import read_wav, write_wav
+    from dsp_asr.models.knn_dtw import KnnDtwRecognizer
     rec = KnnDtwRecognizer(PipelineConfig())
     for lab in ["zero", "one"]:
         rec.enroll(lab, [synth_word(lab, 0)])

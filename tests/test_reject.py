@@ -13,9 +13,9 @@ best distances >= 60.
 import numpy as np
 import pytest
 
-from dsp_tpu import KnnDtwRecognizer, PipelineConfig
-from dsp_tpu.io.dataset import synth_word
-from dsp_tpu.models.knn_dtw import REJECT
+from dsp_asr import KnnDtwRecognizer, PipelineConfig
+from dsp_asr.io.dataset import synth_word
+from dsp_asr.models.knn_dtw import REJECT
 
 CFG = PipelineConfig()
 IN_VOCAB = ["zero", "one", "two", "three", "four"]
@@ -143,7 +143,7 @@ def test_cascade_matcher_rejects():
 
 
 def test_mesh_reject_matches_single_device(rec):
-    from dsp_tpu import parallel as par
+    from dsp_asr import parallel as par
 
     sigs = _fresh_in_vocab() + _oov()
     want = rec.classify_batch(sigs, reject=True)
@@ -159,8 +159,8 @@ def test_mesh_reject_matches_single_device(rec):
 
 @pytest.fixture(scope="module")
 def hmm_rec():
-    from dsp_tpu.config import HmmConfig
-    from dsp_tpu.models.gmm_hmm import GmmHmmRecognizer
+    from dsp_asr.config import HmmConfig
+    from dsp_asr.models.gmm_hmm import GmmHmmRecognizer
 
     corpus = {w: [synth_word(w, i) for i in range(4)] for w in IN_VOCAB}
     r = GmmHmmRecognizer(CFG, HmmConfig(n_states=4, n_mix=2, n_iter=6))
@@ -190,7 +190,7 @@ def test_hmm_recognize_and_explicit_threshold(hmm_rec):
 
 
 def test_hmm_checkpoint_roundtrip(hmm_rec, tmp_path):
-    from dsp_tpu.models.gmm_hmm import GmmHmmRecognizer
+    from dsp_asr.models.gmm_hmm import GmmHmmRecognizer
 
     path = str(tmp_path / "hmm.npz")
     hmm_rec.save(path)
@@ -200,8 +200,8 @@ def test_hmm_checkpoint_roundtrip(hmm_rec, tmp_path):
 
 
 def test_hmm_reject_requires_calibration_or_number(hmm_rec):
-    from dsp_tpu.config import HmmConfig
-    from dsp_tpu.models.gmm_hmm import GmmHmmRecognizer
+    from dsp_asr.config import HmmConfig
+    from dsp_asr.models.gmm_hmm import GmmHmmRecognizer
 
     corpus = {w: [synth_word(w, i) for i in range(2)] for w in IN_VOCAB[:2]}
     r = GmmHmmRecognizer(CFG, HmmConfig(n_states=3, n_mix=1, n_iter=2))

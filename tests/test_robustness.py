@@ -13,10 +13,10 @@ import struct
 import numpy as np
 import pytest
 
-from dsp_tpu.config import PipelineConfig
-from dsp_tpu.io import native
-from dsp_tpu.io.dataset import DIGITS, make_corpus
-from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
+from dsp_asr.config import PipelineConfig
+from dsp_asr.io import native
+from dsp_asr.io.dataset import DIGITS, make_corpus
+from dsp_asr.models.knn_dtw import KnnDtwRecognizer
 
 needs_native = pytest.mark.skipif(not native.available(),
                                   reason="native wavio unavailable")

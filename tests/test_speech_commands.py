@@ -6,10 +6,10 @@ import os
 import numpy as np
 import pytest
 
-from dsp_tpu import cli
-from dsp_tpu.io import speech_commands as sc
-from dsp_tpu.io.dataset import synth_word
-from dsp_tpu.io.wav import write_wav
+from dsp_asr import cli
+from dsp_asr.io import speech_commands as sc
+from dsp_asr.io.dataset import synth_word
+from dsp_asr.io.wav import write_wav
 
 WORDS = ["go", "no", "yes"]
 

@@ -14,9 +14,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from dsp_tpu.golden import dtw as gd
-from dsp_tpu.golden import spot as gs
-from dsp_tpu.ops import spot as ops_spot
+from dsp_asr.golden import dtw as gd
+from dsp_asr.golden import spot as gs
+from dsp_asr.ops import spot as ops_spot
 
 RNG = np.random.default_rng(5)
 
@@ -27,7 +27,7 @@ def test_golden_matches_brute_enumeration(seed):
     over start columns s of the fixed-endpoint whole-span DTW raw cost
     (subsequence DTW minimises raw cost; span normalisation is a
     post-hoc readout), and the start witness must achieve that min."""
-    from dsp_tpu.config import DtwConfig
+    from dsp_asr.config import DtwConfig
     cfg = DtwConfig(band_frac=None, squared=False, impl="scan")
     rng = np.random.default_rng(seed)
     a = rng.standard_normal((4, 2))

@@ -14,9 +14,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from dsp_tpu.golden import spot_hmm as gsh
-from dsp_tpu.models import gmm_hmm as gh
-from dsp_tpu.ops import spot_hmm as osh
+from dsp_asr.golden import spot_hmm as gsh
+from dsp_asr.models import gmm_hmm as gh
+from dsp_asr.ops import spot_hmm as osh
 
 NEG_INF = gsh.NEG_INF
 
@@ -98,8 +98,8 @@ def test_llr_readout_matches_golden():
 
 @pytest.fixture(scope="module")
 def hmm_rec():
-    from dsp_tpu.config import HmmConfig, PipelineConfig
-    from dsp_tpu.io.dataset import make_corpus
+    from dsp_asr.config import HmmConfig, PipelineConfig
+    from dsp_asr.io.dataset import make_corpus
 
     corpus = make_corpus(["zero", "one"], n_per_word=5, seed=0)
     rec = gh.GmmHmmRecognizer(PipelineConfig(),
@@ -114,7 +114,7 @@ def test_hmm_spotter_finds_keywords(hmm_rec):
     sys.path.insert(0, __file__.rsplit("/", 1)[0])
     from test_spotter import _build_stream
 
-    from dsp_tpu.models.spotter import HmmSpotter
+    from dsp_asr.models.spotter import HmmSpotter
 
     sig, spans = _build_stream(
         ["three", "zero", "four", "one", "five"], seed=2)
@@ -148,7 +148,7 @@ def test_hmm_spotter_finds_keywords(hmm_rec):
 
 
 def test_ubm_persists_through_save_load(hmm_rec, tmp_path):
-    from dsp_tpu.config import PipelineConfig
+    from dsp_asr.config import PipelineConfig
 
     p = str(tmp_path / "hmm.npz")
     hmm_rec.save(p)
@@ -167,7 +167,7 @@ def test_spot_hmm_chunk_matches_offline(hmm_rec, chunks):
     — ops/spot_hmm.py:spot_hmm_chunk docstring)."""
     import jax.numpy as jnp
 
-    from dsp_tpu.ops.spot_hmm import (spot_hmm_batch, spot_hmm_chunk,
+    from dsp_asr.ops.spot_hmm import (spot_hmm_batch, spot_hmm_chunk,
                                       spot_hmm_init)
 
     params, ubm = hmm_rec.params, hmm_rec.ubm
@@ -198,7 +198,7 @@ def test_spot_hmm_chunk_padding_rows_ignored(hmm_rec):
     the exact-length feed bit-for-bit."""
     import jax.numpy as jnp
 
-    from dsp_tpu.ops.spot_hmm import spot_hmm_chunk, spot_hmm_init
+    from dsp_asr.ops.spot_hmm import spot_hmm_chunk, spot_hmm_init
 
     params, ubm = hmm_rec.params, hmm_rec.ubm
     rng = np.random.default_rng(4)
@@ -224,7 +224,7 @@ def test_streaming_hmm_spotter_matches_offline_events(hmm_rec):
     sys.path.insert(0, __file__.rsplit("/", 1)[0])
     from test_spotter import _build_stream
 
-    from dsp_tpu.models.spotter import HmmSpotter, StreamingHmmSpotter
+    from dsp_asr.models.spotter import HmmSpotter, StreamingHmmSpotter
 
     sig, spans = _build_stream(
         ["three", "zero", "four", "one", "five"], seed=2)
@@ -251,7 +251,7 @@ def test_streaming_hmm_spotter_chunk_size_invariance(hmm_rec):
     sys.path.insert(0, __file__.rsplit("/", 1)[0])
     from test_spotter import _build_stream
 
-    from dsp_tpu.models.spotter import StreamingHmmSpotter
+    from dsp_asr.models.spotter import StreamingHmmSpotter
 
     sig, _ = _build_stream(["zero", "three"], seed=5)
     outs = []

@@ -10,10 +10,10 @@ batch and online (SPRING) streaming.
 import numpy as np
 import pytest
 
-from dsp_tpu.config import PipelineConfig
-from dsp_tpu.io.dataset import synth_word
-from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
-from dsp_tpu.models.spotter import KeywordSpotter, StreamingSpotter
+from dsp_asr.config import PipelineConfig
+from dsp_asr.io.dataset import synth_word
+from dsp_asr.models.knn_dtw import KnnDtwRecognizer
+from dsp_asr.models.spotter import KeywordSpotter, StreamingSpotter
 
 SR = 16000
 HOP = 160
@@ -164,7 +164,7 @@ def test_mesh_spotting_matches_single_device(rec):
     """Bank-sharded spotting over a ('data','bank') mesh is bit-exact vs
     the single-device spotter (zero collectives — each device scans its
     template shard; padding templates score BIG and emit nothing)."""
-    from dsp_tpu import parallel as par
+    from dsp_asr import parallel as par
 
     sig1, _ = _build_stream(WORDS, seed=2)
     sig2, _ = _build_stream(["zero", "three"], seed=9)
@@ -218,7 +218,7 @@ def test_calibrate_threshold_separates_and_matches_default_scale(rec):
 def test_calibrate_threshold_requires_pairs():
     import pytest
 
-    from dsp_tpu.config import PipelineConfig
+    from dsp_asr.config import PipelineConfig
 
     r1 = KnnDtwRecognizer(PipelineConfig())
     r1.enroll("zero", [synth_word("zero", 0)])
@@ -234,7 +234,7 @@ def test_calibrate_threshold_requires_pairs():
 def test_threshold_resolution_order(rec, tmp_path):
     """Explicit threshold > bank-stored calibration > fixed default 40,
     and the stored calibration survives a checkpoint round trip."""
-    from dsp_tpu.models.spotter import DEFAULT_SPOT_THRESHOLD
+    from dsp_asr.models.spotter import DEFAULT_SPOT_THRESHOLD
 
     assert rec.spot_threshold is None
     sp0 = KeywordSpotter(rec)

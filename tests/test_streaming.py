@@ -5,13 +5,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dsp_tpu.config import FrontendConfig, PipelineConfig, VadConfig
-from dsp_tpu import golden
-from dsp_tpu.io.dataset import synth_word
-from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
-from dsp_tpu.models.streaming import StreamingRecognizer
-from dsp_tpu.ops import frontend as fe
-from dsp_tpu.ops import streaming as st
+from dsp_asr.config import FrontendConfig, PipelineConfig, VadConfig
+from dsp_asr import golden
+from dsp_asr.io.dataset import synth_word
+from dsp_asr.models.knn_dtw import KnnDtwRecognizer
+from dsp_asr.models.streaming import StreamingRecognizer
+from dsp_asr.ops import frontend as fe
+from dsp_asr.ops import streaming as st
 
 FCFG = FrontendConfig()
 VCFG = VadConfig()
@@ -224,9 +224,9 @@ def test_batched_streams_match_individual():
 def test_long_stream_bounded_memory():
     """Hours-long streams must not grow host memory; a word arriving after
     a long silence is still recognized with correct global indices."""
-    from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
-    from dsp_tpu.models.streaming import StreamingRecognizer
-    from dsp_tpu.config import PipelineConfig
+    from dsp_asr.models.knn_dtw import KnnDtwRecognizer
+    from dsp_asr.models.streaming import StreamingRecognizer
+    from dsp_asr.config import PipelineConfig
 
     rec = KnnDtwRecognizer(PipelineConfig())
     for lab in ["zero", "one"]:
@@ -253,9 +253,9 @@ def test_sharded_streams_match_single_device():
     """Streams sharded over the mesh data axis == unsharded batch."""
     import jax
 
-    from dsp_tpu import parallel as par
-    from dsp_tpu.ops import streaming as st
-    from dsp_tpu.ops import frontend as fe
+    from dsp_asr import parallel as par
+    from dsp_asr.ops import streaming as st
+    from dsp_asr.ops import frontend as fe
 
     rng = np.random.default_rng(11)
     s_streams, n_chunks = 8, 4

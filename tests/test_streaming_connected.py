@@ -6,12 +6,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from dsp_tpu.config import PipelineConfig
-from dsp_tpu.io.dataset import synth_connected, synth_word
-from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
-from dsp_tpu.models.streaming import (StreamingConnectedRecognizer,
+from dsp_asr.config import PipelineConfig
+from dsp_asr.io.dataset import synth_connected, synth_word
+from dsp_asr.models.knn_dtw import KnnDtwRecognizer
+from dsp_asr.models.streaming import (StreamingConnectedRecognizer,
                                       _np_deltas)
-from dsp_tpu.ops import frontend as fe
+from dsp_asr.ops import frontend as fe
 
 
 def test_np_deltas_matches_jax_deltas():

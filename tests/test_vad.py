@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dsp_tpu.config import FrontendConfig, VadConfig
-from dsp_tpu import golden
-from dsp_tpu.io.dataset import synth_word
-from dsp_tpu.ops import vad as jvad
+from dsp_asr.config import FrontendConfig, VadConfig
+from dsp_asr import golden
+from dsp_asr.io.dataset import synth_word
+from dsp_asr.ops import vad as jvad
 
 FCFG = FrontendConfig()
 VCFG = VadConfig()
@@ -178,7 +178,7 @@ def test_vad_two_pass_segments_parity():
     x[6000:14000] += 0.06 * t1
     x[30000:38000] += 0.06 * t2
     x = x.astype(np.float32)
-    from dsp_tpu.golden import vad as gvad
+    from dsp_asr.golden import vad as gvad
     want = gvad.detect_segments(x, FCFG, TP_CFG)
     frames = golden.frame_signal(x, FCFG.frame_len, FCFG.hop_len)
     e = jnp.asarray(golden.short_time_energy(frames), jnp.float32)

@@ -11,11 +11,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dsp_tpu.config import FrontendConfig, PipelineConfig, VadConfig
-from dsp_tpu.golden import vad as gvad
-from dsp_tpu.io.dataset import DIGITS, make_corpus, synth_connected, synth_word
-from dsp_tpu.models.knn_dtw import KnnDtwRecognizer
-from dsp_tpu.ops import vad as jvad
+from dsp_asr.config import FrontendConfig, PipelineConfig, VadConfig
+from dsp_asr.golden import vad as gvad
+from dsp_asr.io.dataset import DIGITS, make_corpus, synth_connected, synth_word
+from dsp_asr.models.knn_dtw import KnnDtwRecognizer
+from dsp_asr.ops import vad as jvad
 
 FCFG = FrontendConfig()
 VCFG = VadConfig()
@@ -164,8 +164,8 @@ class TestConnectedRecognition:
         assert conn == [[iso]]
 
     def test_hmm_and_vq_families_decode_connected(self):
-        from dsp_tpu.models.gmm_hmm import GmmHmmRecognizer
-        from dsp_tpu.models.vq import VqRecognizer
+        from dsp_asr.models.gmm_hmm import GmmHmmRecognizer
+        from dsp_asr.models.vq import VqRecognizer
 
         corpus = make_corpus(n_per_word=3, seed=0)
         clips = [synth_connected(["three", "seven", "zero"], 5),
@@ -183,7 +183,7 @@ class TestConnectedRecognition:
         different algorithms (running threshold state machine vs global
         run-length masks) but must emit the same label sequence on clean
         well-separated connected speech."""
-        from dsp_tpu.models.streaming import StreamingRecognizer
+        from dsp_asr.models.streaming import StreamingRecognizer
 
         for seed in (21, 22):
             labs_truth = ["five", "two", "eight"]
@@ -230,7 +230,7 @@ class TestConnectedRecognition:
         """A mesh only implements the full banded DTW; silently ignoring
         a configured ltw/cascade matcher (as it used to) diverges from
         the meshless recognizer — it must raise instead."""
-        from dsp_tpu import parallel as par
+        from dsp_asr import parallel as par
 
         recognizer.mesh = par.make_mesh(4, 2)
         recognizer.matcher = "ltw"
@@ -247,7 +247,7 @@ class TestConnectedRecognition:
         """Bank-sharded connected decoding must match the single-device
         path label-for-label (same flat segment features, classify via
         parallel.classify_sharded)."""
-        from dsp_tpu import parallel as par
+        from dsp_asr import parallel as par
 
         clips = [synth_connected(["three", "seven", "zero"], 5),
                  synth_connected(["one"], 6),

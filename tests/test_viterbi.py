@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from dsp_tpu import golden
-from dsp_tpu.ops import viterbi as jvit
+from dsp_asr import golden
+from dsp_asr.ops import viterbi as jvit
 
 
 def _random_hmm(rng, s):

@@ -6,9 +6,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dsp_tpu.config import PipelineConfig, VqConfig
-from dsp_tpu.io.dataset import make_corpus
-from dsp_tpu.models.vq import VqRecognizer, kmeans_fit, vq_distortion, _sq_dists
+from dsp_asr.config import PipelineConfig, VqConfig
+from dsp_asr.io.dataset import make_corpus
+from dsp_asr.models.vq import VqRecognizer, kmeans_fit, vq_distortion, _sq_dists
 
 LABELS = ["zero", "one", "two", "three", "four"]
 
@@ -73,7 +73,7 @@ def test_vq_save_load_roundtrip(fitted, tmp_path):
 def test_vq_load_rejects_mismatched_frontend(fitted, tmp_path):
     import dataclasses
 
-    from dsp_tpu.config import FrontendConfig
+    from dsp_asr.config import FrontendConfig
 
     p = os.path.join(tmp_path, "vq.npz")
     fitted.save(p)
